@@ -1,5 +1,5 @@
 // Native cluster-BVH builder (SURVEY.md §2 row 5 — the reference's
-// KD-tree builder is native C++; this is its TPU-shaped equivalent).
+// KD-tree builder is native C++; this is its cluster-BVH equivalent).
 //
 // Builds a binned-SAH BVH over triangle centroids and flattens it into
 // fixed-size leaf clusters (<= leaf_size triangles each), emitting the

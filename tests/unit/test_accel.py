@@ -5,6 +5,7 @@ the same scene arrays — same t, same prim id, same occlusion verdict.
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from tputracer.accel import (
     intersect_brute,
@@ -91,49 +92,51 @@ def test_mesh_scene_renders():
 
 
 def test_pallas_kernel_matches_brute_interpret():
-    """The Pallas tile-coherent traversal kernel, run in interpreter mode
-    (the kernel 'sanitizer' of SURVEY.md §5), against brute force."""
-    from tputracer.accel.traverse_tpu import intersect_pallas, occluded_pallas
+    """The Triton traversal kernel (accel.traverse_gpu), run in
+    interpreter mode, against brute force: closest hit and any-hit."""
+    from tputracer.accel.traverse_gpu import (intersect_traverse,
+                                              occluded_traverse)
 
     scene = _random_scene(n_tris=300, leaf_size=16, seed=11)
     o, d = _random_rays(600, seed=12)
     tmin = jnp.zeros((600,))
     tmax = jnp.full((600,), 3.0e38)
     hb = intersect_brute(scene, o, d, tmin, tmax)
-    hp = intersect_pallas(scene, o, d, tmin, tmax, interpret=True)
+    hp = intersect_traverse(scene, o, d, tmin, tmax, interpret=True)
     v = np.asarray(hb.valid)
     np.testing.assert_array_equal(np.asarray(hp.valid), v)
     np.testing.assert_array_equal(np.asarray(hp.prim)[v], np.asarray(hb.prim)[v])
-    # t via Moeller-Trumbore vs the plane equation: float32 formula skew
+    # same Pluecker + plane-equation math as brute force, summed in
+    # another order: atol covers the cancellation in (v0.n - o.n) of a
+    # hit close to the ray origin, at this unit scene scale
     np.testing.assert_allclose(np.asarray(hp.t)[v], np.asarray(hb.t)[v],
-                               rtol=2e-4)
+                               rtol=1e-5, atol=1e-6)
     ob = np.asarray(occluded_brute(scene, o, d, jnp.full((600,), 1.5)))
-    op = np.asarray(occluded_pallas(scene, o, d, jnp.full((600,), 1.5),
-                                    interpret=True))
+    op = np.asarray(occluded_traverse(scene, o, d, jnp.full((600,), 1.5),
+                                      interpret=True))
     np.testing.assert_array_equal(ob, op)
 
 
 def test_pallas_kernel_mixed_liveness_interpret():
-    """Round-2 advisor: exercise the kernel's wavefront-facing paths off-
-    TPU — per-lane tmax=0 dead lanes, varied finite tmax, all-dead
-    subtiles (any_live skip), and a ray count that is not a multiple of
-    TILE*SUB (pad path).  Dead lanes must come back invalid/unoccluded;
-    live lanes must match brute force exactly."""
-    from tputracer.accel.traverse_tpu import (SUB, TILE, intersect_pallas,
-                                              occluded_pallas)
+    """The traversal kernel's wavefront-facing paths: per-lane tmax=0
+    dead lanes, varied finite tmax, all-dead blocks, and a ray count that
+    is not a multiple of the block.  Dead lanes come back invalid and
+    unoccluded; live lanes match brute force exactly."""
+    from tputracer.accel.traverse_gpu import (BLOCK, intersect_traverse,
+                                              occluded_traverse)
 
-    n = TILE * SUB + 3 * TILE + 7     # spans 2 grid steps, ragged tail
+    n = 5 * BLOCK + 7                 # ragged tail
     scene = _random_scene(n_tris=300, leaf_size=16, seed=21)
     o, d = _random_rays(n, seed=22)
     r = np.random.default_rng(23)
     tmax_np = r.uniform(0.5, 4.0, n).astype(np.float32)
-    # kill whole subtiles (any_live skip) and scattered single lanes
-    tmax_np[TILE:3 * TILE] = 0.0
+    # kill whole blocks and scattered single lanes
+    tmax_np[BLOCK:3 * BLOCK] = 0.0
     tmax_np[r.integers(0, n, n // 4)] = 0.0
     tmin = jnp.zeros((n,))
     tmax = jnp.asarray(tmax_np)
     hb = intersect_brute(scene, o, d, tmin, tmax)
-    hp = intersect_pallas(scene, o, d, tmin, tmax, interpret=True)
+    hp = intersect_traverse(scene, o, d, tmin, tmax, interpret=True)
     dead = tmax_np == 0.0
     assert not np.asarray(hp.valid)[dead].any()
     np.testing.assert_array_equal(np.asarray(hp.valid), np.asarray(hb.valid))
@@ -141,11 +144,132 @@ def test_pallas_kernel_mixed_liveness_interpret():
     np.testing.assert_array_equal(np.asarray(hp.prim)[v],
                                   np.asarray(hb.prim)[v])
     np.testing.assert_allclose(np.asarray(hp.t)[v], np.asarray(hb.t)[v],
-                               rtol=2e-4)
+                               rtol=1e-5, atol=1e-6)
     ob = np.asarray(occluded_brute(scene, o, d, tmax))
-    op = np.asarray(occluded_pallas(scene, o, d, tmax, interpret=True))
+    op = np.asarray(occluded_traverse(scene, o, d, tmax, interpret=True))
     assert not op[dead].any()
     np.testing.assert_array_equal(ob, op)
+
+
+def test_traversal_kernel_spheres_and_mesh_anyhit_interpret():
+    """Traversal kernel on a clustered mesh scene WITH analytic spheres
+    (the sphere pre-pass seeds the walk): shadow rays of mixed length
+    match brute force, and closest hits land on spheres and triangles
+    alike."""
+    from tputracer.accel.traverse_gpu import (intersect_traverse,
+                                              occluded_traverse)
+
+    scene = mesh_scene(subdiv=2, leaf_size=32, accel="cluster")
+    scene = make_scene(
+        np.stack([np.asarray(scene.tri_v0),
+                  np.asarray(scene.tri_v0 + scene.tri_e1),
+                  np.asarray(scene.tri_v0 + scene.tri_e2)], axis=1)[
+            np.asarray(scene.tri_mask) > 0],
+        np.zeros((int(np.sum(np.asarray(scene.tri_mask) > 0)),), np.int32),
+        [{"kind": DIFFUSE, "albedo": (0.5, 0.5, 0.5)}],
+        spheres=[((0.0, 0.3, -1.2), 0.25, 0), ((0.6, 0.0, 0.0), 0.3, 0)],
+        camera=scene.camera, accel="cluster", leaf_size=32)
+    n = 300
+    o, d = _random_rays(n, seed=52)
+    o = o * 1.5
+    # a third of the rays aimed at the sphere centres
+    aim = jnp.asarray([[0.0, 0.3, -1.2], [0.6, 0.0, 0.0]])[
+        jnp.arange(n // 3) % 2] - o[:n // 3]
+    d = d.at[:n // 3].set(aim / jnp.linalg.norm(aim, axis=1, keepdims=True))
+    r = np.random.default_rng(53)
+    tmax = jnp.asarray(r.uniform(0.2, 6.0, n).astype(np.float32))
+    ob = np.asarray(occluded_brute(scene, o, d, tmax))
+    op = np.asarray(occluded_traverse(scene, o, d, tmax, interpret=True))
+    assert 0 < ob.sum() < n
+    np.testing.assert_array_equal(ob, op)
+    tmin = jnp.zeros((n,))
+    far = jnp.full((n,), 3.0e38)
+    hb = intersect_brute(scene, o, d, tmin, far)
+    hp = intersect_traverse(scene, o, d, tmin, far, interpret=True)
+    v = np.asarray(hb.valid)
+    prim = np.asarray(hb.prim)[v]
+    assert (prim >= scene.n_tri_pad).any() and (prim < scene.n_tri_pad).any()
+    np.testing.assert_array_equal(np.asarray(hp.prim)[v], prim)
+
+
+@pytest.mark.parametrize("variant", ["boxes", "spheres"])
+def test_fused_kernel_matches_brute_interpret(variant):
+    """The Triton small-scene intersector (accel.intersect_gpu) in
+    interpreter mode against intersect_brute on a Cornell scene: dead
+    lanes, a ray count off the block size, closest hit and any-hit."""
+    from tputracer.accel.intersect_gpu import (BLOCK, intersect_fused,
+                                               occluded_fused)
+    from tputracer.scene import cornell_box
+
+    scene = cornell_box(variant)
+    n = 4 * BLOCK + 37
+    r = np.random.default_rng(61)
+    o = jnp.asarray(r.uniform(0.05, 0.95, (n, 3)).astype(np.float32))
+    dn = r.normal(size=(n, 3)).astype(np.float32)
+    d = jnp.asarray(dn / np.linalg.norm(dn, axis=1, keepdims=True))
+    tmax_np = np.full((n,), 3.0e38, np.float32)
+    tmax_np[r.random(n) < 0.3] = 0.0
+    tmax_np[BLOCK:2 * BLOCK] = 0.0                 # one all-dead block
+    tmin = jnp.zeros((n,))
+    tmax = jnp.asarray(tmax_np)
+    hb = intersect_brute(scene, o, d, tmin, tmax)
+    hf = intersect_fused(scene, o, d, tmin, tmax, interpret=True)
+    v = np.asarray(hb.valid)
+    assert v.sum() > n // 4
+    np.testing.assert_array_equal(np.asarray(hf.valid), v)
+    np.testing.assert_array_equal(np.asarray(hf.prim), np.asarray(hb.prim))
+    np.testing.assert_allclose(np.asarray(hf.t)[v], np.asarray(hb.t)[v],
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(hf.mat), np.asarray(hb.mat))
+    ts = jnp.asarray(r.uniform(0.1, 1.2, n).astype(np.float32))
+    ob = np.asarray(occluded_brute(scene, o, d, ts))
+    of = np.asarray(occluded_fused(scene, o, d, ts, interpret=True))
+    assert 0 < ob.sum() < n
+    np.testing.assert_array_equal(ob, of)
+
+
+def test_platform_selects_intersector():
+    """The dispatch is a pure function of the platform name and the
+    scene layout: kernels on "gpu", XLA references on "cpu", and an
+    error (never a silent fallback) anywhere else."""
+    from tputracer import accel
+    from tputracer.accel import intersect_gpu, traverse_gpu
+
+    assert accel.select("gpu", False) == (intersect_gpu.intersect_fused,
+                                          intersect_gpu.occluded_fused)
+    assert accel.select("gpu", True) == (traverse_gpu.intersect_traverse,
+                                         traverse_gpu.occluded_traverse)
+    assert accel.select("cpu", False) == (intersect_brute, occluded_brute)
+    assert accel.select("cpu", True) == (intersect_clustered,
+                                         occluded_clustered)
+    with pytest.raises(ValueError, match="metal"):
+        accel.select("metal", False)
+    assert accel.current_platform() == "cpu"
+
+
+def test_kernels_lower_for_cuda():
+    """Both kernels lower to Triton custom calls for the CUDA platform
+    (cross-platform lowering runs here without a GPU), inside a full
+    render for each scene layout."""
+    import jax
+
+    from tputracer import accel
+    from tputracer.config import RenderConfig
+    from tputracer.integrators.pt import render_pt
+    from tputracer.scene import cornell_box
+
+    cfg = RenderConfig(width=8, height=8, spp=2, max_bounces=2,
+                       chunk_size=128)
+    real = accel.current_platform
+    accel.current_platform = lambda: "gpu"
+    try:
+        for scene in (cornell_box("spheres"),
+                      mesh_scene(subdiv=2, leaf_size=32, accel="cluster")):
+            low = jax.jit(lambda s: render_pt(s, cfg)[0]).trace(
+                scene).lower(lowering_platforms=("cuda",))
+            assert "xla.gpu.triton" in low.as_text()
+    finally:
+        accel.current_platform = real
 
 
 def test_mesh_scene_grad():
@@ -194,104 +318,6 @@ f -4 -3 -2 -1
     np.testing.assert_allclose(tv[0, 1], [1, 0, 0])
     scene = obj_scene(obj, accel="none")
     assert scene.n_tris == 4
-
-
-def test_pairs_kernel_matches_brute_interpret():
-    """Round-4 pair-expansion traversal (accel.pairs_tpu) vs brute force
-    in interpreter mode: closest hit, any-hit, mixed liveness, ragged
-    tail, and a K-overflow-heavy scene (rays admitting > K clusters must
-    resolve exactly through the union-walk fallback)."""
-    from tputracer.accel.pairs_tpu import K, intersect_pairs, occluded_pairs
-
-    n = 4 * 64 + 7
-    # dense overlapping clusters so many rays admit more than K boxes
-    scene = _random_scene(n_tris=480, leaf_size=16, seed=31)
-    o, d = _random_rays(n, seed=32)
-    r = np.random.default_rng(33)
-    tmax_np = r.uniform(0.5, 4.0, n).astype(np.float32)
-    tmax_np[64:128] = 0.0                       # dead subtile
-    tmax_np[r.integers(0, n, n // 4)] = 0.0     # scattered dead lanes
-    tmin = jnp.zeros((n,))
-    tmax = jnp.asarray(tmax_np)
-
-    hb = intersect_brute(scene, o, d, tmin, jnp.full((n,), 3.0e38))
-    hp = intersect_pairs(scene, o, d, tmin, jnp.full((n,), 3.0e38),
-                         interpret=True)
-    v = np.asarray(hb.valid)
-    assert K >= 2
-    np.testing.assert_array_equal(np.asarray(hp.valid), v)
-    np.testing.assert_array_equal(np.asarray(hp.prim)[v],
-                                  np.asarray(hb.prim)[v])
-    # rtol as the union-walk kernel test; atol for near-zero t where the
-    # Moeller-Trumbore vs plane-equation formula skew is absolute
-    np.testing.assert_allclose(np.asarray(hp.t)[v], np.asarray(hb.t)[v],
-                               rtol=2e-4, atol=1e-6)
-
-    # mixed-liveness closest hit: dead lanes come back invalid
-    hb2 = intersect_brute(scene, o, d, tmin, tmax)
-    hp2 = intersect_pairs(scene, o, d, tmin, tmax, interpret=True)
-    dead = tmax_np == 0.0
-    assert not np.asarray(hp2.valid)[dead].any()
-    np.testing.assert_array_equal(np.asarray(hp2.valid),
-                                  np.asarray(hb2.valid))
-    v2 = np.asarray(hb2.valid)
-    np.testing.assert_array_equal(np.asarray(hp2.prim)[v2],
-                                  np.asarray(hb2.prim)[v2])
-
-    ob = np.asarray(occluded_brute(scene, o, d, tmax))
-    op = np.asarray(occluded_pairs(scene, o, d, tmax, interpret=True))
-    assert not op[dead].any()
-    np.testing.assert_array_equal(ob, op)
-
-
-def test_pairs_kernel_no_spheres_interpret():
-    """Pair traversal on a sphere-free clustered scene (bt0 = tmax path)."""
-    from tputracer.accel.pairs_tpu import intersect_pairs, occluded_pairs
-
-    scene = _random_scene(n_tris=300, n_spheres=0, leaf_size=16, seed=41)
-    o, d = _random_rays(300, seed=42)
-    tmin = jnp.zeros((300,))
-    tmax = jnp.full((300,), 3.0e38)
-    hb = intersect_brute(scene, o, d, tmin, tmax)
-    hp = intersect_pairs(scene, o, d, tmin, tmax, interpret=True)
-    v = np.asarray(hb.valid)
-    np.testing.assert_array_equal(np.asarray(hp.valid), v)
-    np.testing.assert_array_equal(np.asarray(hp.prim)[v],
-                                  np.asarray(hb.prim)[v])
-    ob = np.asarray(occluded_brute(scene, o, d, jnp.full((300,), 1.5)))
-    op = np.asarray(occluded_pairs(scene, o, d, jnp.full((300,), 1.5),
-                                   interpret=True))
-    np.testing.assert_array_equal(ob, op)
-
-
-def test_bf16_slab_conservative_far_origin(monkeypatch):
-    """Round-5 (advisor): the opt-in bf16 slab's admission guard must
-    stay conservative when |origin| >> |box - origin| — rounding the
-    origin itself to bf16 adds ABSOLUTE error ~|o|*2^-9 that a purely
-    relative guard misses.  Rays from |o| ~ 1000 at a unit-scale scene
-    must still find every brute-force hit."""
-    monkeypatch.setenv("TPUTRACER_SLAB_BF16", "1")
-    from tputracer.accel.traverse_tpu import intersect_pallas
-
-    scene = _random_scene(n_tris=300, n_spheres=0, leaf_size=16, seed=31)
-    r = np.random.default_rng(32)
-    n = 256
-    o_far = r.normal(size=(n, 3))
-    o_far = (o_far / np.linalg.norm(o_far, axis=1, keepdims=True)
-             * 1000.0).astype(np.float32)
-    tgt = r.uniform(-1, 1, (n, 3)).astype(np.float32)
-    d = tgt - o_far
-    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
-    o, d = jnp.asarray(o_far), jnp.asarray(d)
-    tmin = jnp.zeros((n,))
-    tmax = jnp.full((n,), 3.0e38)
-    hb = intersect_brute(scene, o, d, tmin, tmax)
-    hp = intersect_pallas(scene, o, d, tmin, tmax, interpret=True)
-    # conservative admission may only ADD visits, never lose a hit
-    v = np.asarray(hb.valid)
-    np.testing.assert_array_equal(np.asarray(hp.valid), v)
-    np.testing.assert_array_equal(np.asarray(hp.prim)[v],
-                                  np.asarray(hb.prim)[v])
 
 
 def test_obj_mtl_materials():

@@ -1,6 +1,6 @@
-"""Unit tests for the benchmark ledger hygiene logic (round-5):
-outlier refusal, protocol awareness, note exemption, and the
-best-of-recent regression check.  Pure Python — no JAX, no TPU.
+"""Unit tests for the benchmark ledger hygiene logic: outlier refusal,
+protocol awareness, note exemption, and the best-of-recent regression
+check.  Pure Python — no JAX, no device.
 """
 
 import json
@@ -60,11 +60,11 @@ def test_outlier_guard_exempts_quick_and_noted(tmp_path):
 
 
 def test_check_best_of_recent_tolerates_one_slow_roll(tmp_path):
-    """Bimodal-tunnel protocol: a single slow-mode record among the
-    recent ones must not fail the check."""
+    """Best-of-recent protocol: a single slow record among the recent
+    ones must not fail the check."""
     p = str(tmp_path / "r.jsonl")
     _write(p, [_row(rays=10e6), _row(rays=10.2e6), _row(rays=10.1e6),
-               _row(rays=7.8e6),      # slow-mode roll
+               _row(rays=7.8e6),      # one slow process
                _row(rays=10.05e6)])
     assert _check_regressions(p, ["mesh"]) == 0
 

@@ -1,18 +1,19 @@
-"""tputracer — a TPU-native differentiable path tracer.
+"""tputracer — a differentiable wavefront path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 reference C++ offline renderer ``winmad/Winmad-s-raytracer-v1.0``
 (unidirectional path tracing with NEE + Russian roulette, bidirectional
 path tracing with vertex connection + MIS, KD-tree/BVH ray-triangle and
 ray-sphere intersection, diffuse/specular/refractive BSDFs, scene loading,
-image output) — redesigned TPU-first:
+image output) — redesigned for batched accelerators; it runs on GPUs:
 
 * recursion inverted into bounce-major **wavefront** loops inside one jit,
-* intersection as batched **Pluecker matmuls** (MXU) / stackless BVH kernels,
+* intersection as batched **Pluecker** tests: XLA references, and GPU
+  kernels (Pallas, Triton route) for brute force and cluster-BVH walks,
 * counter-based, placement-invariant **hash RNG** (no sampler state),
 * **differentiable** shading (detached-sampling estimator) — a new
   capability on top of the reference,
-* multi-chip scaling via ``jax.sharding`` meshes + ``shard_map``.
+* multi-device scaling via ``jax.sharding`` meshes + ``shard_map``.
 
 NOTE on citations: the reference mount ``/root/reference`` was empty in
 rounds surveyed so far (see SURVEY.md header), so docstrings cite the

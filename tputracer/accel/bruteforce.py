@@ -1,19 +1,19 @@
 """Batched brute-force intersection (SURVEY.md §2 rows 3-4, M1 of §7).
 
 The reference does per-ray Moeller-Trumbore in a recursive KD-tree walk
-(SURVEY.md §3.5).  On TPU the roles invert: for Cornell-class scenes
-(tens of primitives) the fastest structure is NO structure — test every
-ray against every primitive as one dense contraction on the MXU:
+(SURVEY.md §3.5).  For Cornell-class scenes (tens of primitives) the
+fastest structure is NO structure — test every ray against every
+primitive:
 
   * ray feature  f = [d, o x d]                    (N, 6)
-  * per-edge Pluecker column  [M, E]               (6, T) x 3 edges
-  * signed volumes  w = einsum('nk,jkt->njt')      (N, 3, T)  <- MXU
-  * hit  <=>  all three w same sign;  t from the plane equation via two
-    more (N,3)@(3,T) matmuls.
+  * per-edge Pluecker coordinates  [M, E]          (6, T) x 3 edges
+  * signed volumes  w = f . [M, E]                 (N, 3, T)
+  * hit  <=>  all three w same sign;  t from the plane equation.
 
 No branches, no divergence, no acceleration-structure memory traffic.
-The BVH/Pallas path (accel.bvh, M4) takes over for ~100k-triangle scenes;
-both share this module's leaf test.
+This is the XLA reference; on the GPU accel.intersect_gpu runs the same
+test as one fused kernel.  The cluster BVH (accel.bvh) takes over for
+~100k-triangle scenes with the same leaf test.
 """
 
 from __future__ import annotations
@@ -21,10 +21,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import jax.numpy as jnp
-from jax import lax
 
 from tputracer import geometry as g
-from tputracer.lookup import fetch, fetch_int
 
 _BIG = 3.0e38  # python float, NOT jnp.float32: module-level jnp
                # constants get hoisted as phantom executable inputs
@@ -44,21 +42,25 @@ class Hit(NamedTuple):
 
 
 def _tri_candidates(scene, o, d, tmin, tmax):
-    """(t, valid) per (ray, triangle): the MXU-formulated Pluecker test."""
+    """(t, valid) per (ray, triangle): the Pluecker sign test + plane t.
+
+    Written elementwise (no dot products), so XLA fuses the whole (N, T)
+    evaluation into the reduction that consumes it instead of writing
+    (N, 3, T) and (N, T) planes to memory; the GPU kernels sum in the
+    same order."""
     m = jnp.cross(o, d)                              # (N,3) ray moment
     feat = jnp.concatenate([d, m], axis=-1)          # (N,6)
+    plu = scene.plu                                  # (3,6,T)
     # signed volumes against the three edges of every triangle
-    w = jnp.einsum("nk,jkt->njt", feat, scene.plu,
-                   precision=lax.Precision.HIGHEST)  # (N,3,T)
-    same_sign = jnp.logical_or(
-        jnp.all(w >= 0.0, axis=1), jnp.all(w <= 0.0, axis=1))  # (N,T)
+    w = [sum(feat[:, k, None] * plu[e, k][None, :] for k in range(6))
+         for e in range(3)]                          # 3 x (N,T)
+    same_sign = (((w[0] >= 0.0) & (w[1] >= 0.0) & (w[2] >= 0.0))
+                 | ((w[0] <= 0.0) & (w[1] <= 0.0) & (w[2] <= 0.0)))
 
     # t from the supporting plane:  t = (v0.n - o.n) / (d.n)
     nj = scene.tri_n                                  # (T,3)
-    d_dot_n = jnp.einsum("nk,tk->nt", d, nj,
-                         precision=lax.Precision.HIGHEST)
-    o_dot_n = jnp.einsum("nk,tk->nt", o, nj,
-                         precision=lax.Precision.HIGHEST)
+    d_dot_n = sum(d[:, k, None] * nj[None, :, k] for k in range(3))
+    o_dot_n = sum(o[:, k, None] * nj[None, :, k] for k in range(3))
     v0_dot_n = jnp.sum(scene.tri_v0 * nj, axis=-1)    # (T,)
     denom_ok = jnp.abs(d_dot_n) > 1e-12
     t = (v0_dot_n[None, :] - o_dot_n) / jnp.where(denom_ok, d_dot_n, 1.0)
@@ -96,8 +98,9 @@ def intersect_brute(scene, o, d, tmin, tmax) -> Hit:
         ts, sv = _sph_candidates(scene, o, d, tmin, tmax)
         t_all = jnp.concatenate([t_all, jnp.where(sv, ts, _BIG)], axis=1)
 
+    # two reductions of one fused producer: t_all never goes to memory
     prim = jnp.argmin(t_all, axis=1).astype(jnp.int32)   # (N,)
-    t = jnp.take_along_axis(t_all, prim[:, None], axis=1)[:, 0]
+    t = jnp.min(t_all, axis=1)
     valid = t < tmax
     return finalize_hit(scene, o, d, t, prim, valid)
 
@@ -112,17 +115,16 @@ def finalize_hit(scene, o, d, t, prim, valid) -> Hit:
     # poisons gradients through the (masked) NEE math downstream
     p = o + jnp.where(valid, t, 1.0)[:, None] * d
     tri_id = jnp.where(is_tri, prim, 0)
-    n_tri = g.normalize(fetch(scene.tri_n, tri_id))
+    n_tri = g.normalize(scene.tri_n[tri_id])
     if scene.n_spheres:
         sph_id = jnp.where(is_tri, 0, prim - Tp)
-        n_sph = (p - fetch(scene.sph_c, sph_id)) \
-            / fetch(scene.sph_r, sph_id)[:, None]
+        n_sph = (p - scene.sph_c[sph_id]) / scene.sph_r[sph_id][:, None]
         n = jnp.where(is_tri[:, None], n_tri, n_sph)
-        mat = jnp.where(is_tri, fetch_int(scene.tri_mat, tri_id),
-                        fetch_int(scene.sph_mat, sph_id))
+        mat = jnp.where(is_tri, scene.tri_mat[tri_id],
+                        scene.sph_mat[sph_id])
     else:
         n = n_tri
-        mat = fetch_int(scene.tri_mat, tri_id)
+        mat = scene.tri_mat[tri_id]
 
     return Hit(
         t=t,

@@ -2,28 +2,17 @@
 
 The reference builds a recursive KD-tree over triangles on the CPU and
 walks it per ray with a recursive near/far descent (SURVEY.md §3.4-3.5).
-The TPU-native redesign keeps the *build* on the host (it runs once per
-scene — NumPy is fine) but changes the *output shape* to fit how a TPU
-traverses:
+Here the *build* stays on the host (it runs once per scene — NumPy or the
+native SAH builder) and its output is a **2-level cluster BVH**: a binary
+BVH over triangle centroids flattened at a fixed leaf granularity into C
+spatially-coherent clusters of at most ``leaf_size`` triangles
+(zero-padded, masked).  Device arrays are emitted in cluster-major order,
+so every cluster is one contiguous, statically-shaped slice of the
+triangle SoA.
 
-  a **2-level cluster BVH**: a median-split binary BVH is built over
-  triangle centroids and flattened at a fixed leaf granularity into C
-  spatially-coherent clusters of exactly ``leaf_size`` triangles
-  (zero-padded, masked).  Device arrays are emitted in cluster-major
-  order, so every cluster is one contiguous, statically-shaped slice of
-  the triangle SoA — the unit of work a TPU can test densely on the
-  MXU/VPU with no per-lane pointer chasing.
-
-Why not a deep per-ray short-stack tree walk?  A per-lane stack needs a
-data-dependent *vector gather* per step (1024 rays fetching 1024
-different nodes), which TPU vector memory does not do efficiently — the
-reference's pointer-chasing inner loop is exactly the wrong shape for a
-(8, 128)-lane vector unit.  Flattening the tree into coherent leaf
-clusters turns traversal into: one dense ray-vs-all-AABB slab pass
-(C is small), then a few dense ray-vs-cluster triangle blocks — all
-contiguous, statically shaped work.  The tree still exists; it is two
-levels deep by design.  See accel/clustered.py (XLA) and
-accel/traverse_tpu.py (Pallas) for the traversal halves.
+Both traversals walk it per ray, front to back over the C cluster boxes:
+accel/clustered.py (XLA, dense (rays, clusters) arrays) and
+accel/traverse_gpu.py (GPU kernel, one ray per thread).
 """
 
 from __future__ import annotations
@@ -33,8 +22,7 @@ import os
 import numpy as np
 
 
-def pack_clusters(perm, mask, cmin, cmax, src_leaf, dst_leaf,
-                  pad_clusters_to=8):
+def pack_clusters(perm, mask, cmin, cmax, src_leaf, dst_leaf):
     """Greedy post-pass: pack ADJACENT (DFS-order => spatially related)
     src_leaf-sized clusters into full dst_leaf-sized ones.
 
@@ -43,8 +31,8 @@ def pack_clusters(perm, mask, cmin, cmax, src_leaf, dst_leaf,
     clusters: same traversal granularity, ~25%% fewer clusters and
     ~tighter effective AABBs than building at dst_leaf directly (SAH
     leaves at dst_leaf average only ~70%% occupancy).  Merged AABB =
-    union of member AABBs — still conservative.  Padding clusters are
-    dropped and C is re-padded to ``pad_clusters_to`` never-hit boxes.
+    union of member AABBs — still conservative.  Empty clusters are
+    dropped.
     """
     Ls, Ld = src_leaf, dst_leaf
     C = cmin.shape[0]
@@ -64,8 +52,6 @@ def pack_clusters(perm, mask, cmin, cmax, src_leaf, dst_leaf,
         groups.append(cur)
 
     Cn = len(groups)
-    if pad_clusters_to:
-        Cn = -(-Cn // pad_clusters_to) * pad_clusters_to
     nperm = np.zeros((Cn * Ld,), np.int32)
     nmask = np.zeros((Cn * Ld,), np.float32)
     ncmin = np.full((Cn, 3), 3.0e38, np.float32)
@@ -82,7 +68,7 @@ def pack_clusters(perm, mask, cmin, cmax, src_leaf, dst_leaf,
     return nperm, nmask, ncmin, ncmax
 
 
-def build_clusters(tv, leaf_size=64, eps=1e-5, pad_clusters_to=8):
+def build_clusters(tv, leaf_size=64, eps=1e-5):
     """Median-split BVH flattened to fixed-size leaf clusters.
 
     tv: (T, 3, 3) float32 triangle vertices.
@@ -91,18 +77,12 @@ def build_clusters(tv, leaf_size=64, eps=1e-5, pad_clusters_to=8):
                slot (padding slots repeat index 0 and are masked out)
       pad_mask (C*leaf_size,) float32 — 1.0 real / 0.0 padding
       clus_min/clus_max (C, 3) float32 — cluster AABBs (eps-padded)
-
-    C is rounded up to ``pad_clusters_to`` (TPU sublane width — Mosaic
-    pads lanes internally) with never-hit AABBs so the (rays, clusters)
-    slab matrix in the traversal kernels tiles cleanly without blowing
-    up small scenes.
     """
     # Build at the TARGET leaf; pack_clusters then only merges the rare
-    # adjacent under-full pairs.  (Measured on the 82k-tri mesh: building
-    # at leaf/4 and bin-packing got occupancy 69%->91% and C 936->704,
-    # but the merged 32-tri leaf unions are fat/overlapping boxes and
-    # DOUBLED the per-tile cluster unions — 21->46 incoherent trips,
-    # render 9.6M->6.6M rays/s.  Tight boxes beat full slots.)
+    # adjacent under-full pairs.  Building at leaf/4 and bin-packing
+    # fills slots better (occupancy 69% -> 91% on the 82k-tri mesh) but
+    # the merged boxes are fat and overlapping, so rays enter more of
+    # them: tight boxes beat full slots.
     build_leaf = leaf_size
 
     # native binned-SAH builder when available (accel/native.py): better
@@ -110,11 +90,9 @@ def build_clusters(tv, leaf_size=64, eps=1e-5, pad_clusters_to=8):
     if not os.environ.get("TPUTRACER_NO_NATIVE"):
         from tputracer.accel.native import build_clusters_native
 
-        out = build_clusters_native(tv, leaf_size=build_leaf, eps=eps,
-                                    pad_clusters_to=pad_clusters_to)
+        out = build_clusters_native(tv, leaf_size=build_leaf, eps=eps)
         if out is not None:
-            return pack_clusters(*out, build_leaf, leaf_size,
-                                 pad_clusters_to=pad_clusters_to)
+            return pack_clusters(*out, build_leaf, leaf_size)
 
     tv = np.asarray(tv, np.float32)
     T = tv.shape[0]
@@ -135,14 +113,9 @@ def build_clusters(tv, leaf_size=64, eps=1e-5, pad_clusters_to=8):
         stack.append(idx[order[half:]])
 
     C = len(clusters)
-    if pad_clusters_to:
-        C = -(-C // pad_clusters_to) * pad_clusters_to
     L = build_leaf
     perm = np.zeros((C * L,), np.int64)
     mask = np.zeros((C * L,), np.float32)
-    # padding clusters: a degenerate box at t ~ 3e38 — the traversal's
-    # strict (t_enter < tmax) test can never admit it (an INVERTED box
-    # would not work: the slab test's per-axis min/max un-inverts it)
     cmin = np.full((C, 3), 3.0e38, np.float32)
     cmax = np.full((C, 3), 3.0e38, np.float32)
     for ci, idx in enumerate(clusters):
@@ -154,5 +127,4 @@ def build_clusters(tv, leaf_size=64, eps=1e-5, pad_clusters_to=8):
         cmin[ci] = pts.min(axis=0) - ext
         cmax[ci] = pts.max(axis=0) + ext
     return pack_clusters(perm.astype(np.int32), mask, cmin, cmax,
-                         build_leaf, leaf_size,
-                         pad_clusters_to=pad_clusters_to)
+                         build_leaf, leaf_size)

@@ -1,11 +1,11 @@
 """Cluster-BVH traversal in pure XLA (SURVEY.md §2 row 6, §3.5 redesign).
 
 The reference walks a KD-tree recursively per ray, ordering children
-near/far and clipping the t-interval (SURVEY.md §3.5).  The TPU inversion
-keeps the same *front-to-back, early-out* semantics but restructures the
-control flow for vector hardware:
+near/far and clipping the t-interval (SURVEY.md §3.5).  This XLA form
+keeps the same *front-to-back, early-out* semantics with dense arrays
+over the whole ray batch:
 
-  1. every ray slab-tests ALL cluster AABBs densely (one fused VPU pass —
+  1. every ray slab-tests ALL cluster AABBs densely (one fused pass —
      C is a few hundred to a few thousand, so this replaces the tree's
      upper levels outright);
   2. a ``lax.while_loop`` then visits each ray's intersected clusters in
@@ -19,9 +19,9 @@ control flow for vector hardware:
      batch form): its lane goes inactive and the loop ends when all lanes
      are done.
 
-This file is the **always-available correctness path** (SURVEY.md §7
-hard-part 1 mandates a plain-XLA fallback) and the oracle for the Pallas
-kernel (accel.traverse_tpu); both are tested against brute force.
+This file is the plain-XLA path (SURVEY.md §7 hard-part 1), used on the
+CPU, and the oracle for the GPU kernel (accel.traverse_gpu), which walks
+the same order one ray per thread; both are tested against brute force.
 """
 
 from __future__ import annotations
@@ -39,10 +39,10 @@ _BIG = 3.0e38  # python float — see accel/bruteforce.py note
 
 def _safe_inv(d):
     """1/d with signed clamp — degenerate axes produce +-inf slabs, which
-    the min/max slab arithmetic handles correctly (IEEE semantics)."""
-    tiny = jnp.float32(1e-12)
-    return 1.0 / jnp.where(jnp.abs(d) < tiny,
-                           jnp.where(d >= 0.0, tiny, -tiny), d)
+    the min/max slab arithmetic handles correctly (IEEE semantics).
+    Python-float constants, so the traversal kernel can use it too."""
+    return 1.0 / jnp.where(jnp.abs(d) < 1e-12,
+                           jnp.where(d >= 0.0, 1e-12, -1e-12), d)
 
 
 def cluster_entries(scene, o, d, tmin, tmax):

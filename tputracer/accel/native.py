@@ -70,7 +70,7 @@ def available():
     return _load() is not None
 
 
-def build_clusters_native(tv, leaf_size=128, eps=1e-5, pad_clusters_to=8):
+def build_clusters_native(tv, leaf_size=128, eps=1e-5):
     """Native SAH build; same contract as accel.bvh.build_clusters.
     Returns None if the native library is unavailable or overflows."""
     lib = _load()
@@ -93,8 +93,5 @@ def build_clusters_native(tv, leaf_size=128, eps=1e-5, pad_clusters_to=8):
         cmin.ctypes.data_as(fp), cmax.ctypes.data_as(fp), cap)
     if C < 0:
         return None
-    Cp = C
-    if pad_clusters_to:
-        Cp = -(-C // pad_clusters_to) * pad_clusters_to
-    return (perm[:Cp * leaf_size], mask[:Cp * leaf_size],
-            cmin[:Cp].copy(), cmax[:Cp].copy())
+    return (perm[:C * leaf_size], mask[:C * leaf_size],
+            cmin[:C].copy(), cmax[:C].copy())

@@ -1,11 +1,12 @@
 """Differentiable BSDFs: diffuse / mirror / dielectric (SURVEY.md §2 rows 7-9).
 
 The reference dispatches through a virtual BSDF interface with one class
-per material (SURVEY.md §1a "Materials/BSDFs").  On TPU, dispatch becomes
+per material (SURVEY.md §1a "Materials/BSDFs").  Here dispatch becomes
 **masked evaluate-all-lobes**: every lane computes diffuse, mirror and
-glass results and selects by material tag — three cheap VPU paths beat
-any divergent branch (this is the "EP/material-sorted dispatch" analogue
-of SURVEY.md §2's parallelism table, in its simplest masked form).
+glass results and selects by material tag — three cheap elementwise
+paths that XLA fuses into one pass, with no divergent branch (this is
+the "EP/material-sorted dispatch" analogue of SURVEY.md §2's parallelism
+table, in its simplest masked form).
 
 Gradient discipline (SURVEY.md §3.6, "detached sampling"): sampled
 directions and discrete lobe choices are constant w.r.t. parameters; the
@@ -26,7 +27,6 @@ import jax.numpy as jnp
 from jax import lax
 
 from tputracer import geometry as g
-from tputracer.lookup import fetch, fetch_int
 from tputracer.scene.types import DIFFUSE, GLASS, MIRROR
 
 INV_PI = float(1.0 / __import__('math').pi)  # python float — see accel/bruteforce.py note
@@ -34,17 +34,17 @@ INV_PI = float(1.0 / __import__('math').pi)  # python float — see accel/brutef
 
 def emitted(scene, mat, n, d_in):
     """One-sided emitted radiance toward the ray (-d_in). (N,3)."""
-    le = fetch(scene.mat_emission, mat)              # (N,3)
+    le = scene.mat_emission[mat]                     # (N,3)
     front = (g.dot(d_in, n) < 0.0)[:, None]
     return jnp.where(front, le, 0.0)
 
 
 def eval_bsdf(scene, mat, n, wo, wi):
     """f(wo, wi) — nonzero only for the diffuse lobe (deltas never eval)."""
-    kind = fetch_int(scene.mat_kind, mat)
+    kind = scene.mat_kind[mat]
     ns = g.face_forward(n, wo)
     same_side = (g.dot(wi, ns) > 0.0) & (g.dot(wo, ns) > 0.0)
-    f_diff = fetch(scene.mat_albedo, mat) * INV_PI
+    f_diff = scene.mat_albedo[mat] * INV_PI
     sel = (kind == DIFFUSE) & same_side
     return jnp.where(sel[:, None], f_diff, 0.0)
 
@@ -58,12 +58,12 @@ def nee_nonspecular(scene, mat):
     stay in the autodiff graph so a black-initialized material still
     receives NEE gradient (advisor finding, round 2).
     """
-    return fetch_int(scene.mat_kind, mat) == DIFFUSE
+    return scene.mat_kind[mat] == DIFFUSE
 
 
 def pdf_bsdf(scene, mat, n, wo, wi):
     """Solid-angle sampling pdf of :func:`sample_bsdf` for MIS (diffuse only)."""
-    kind = fetch_int(scene.mat_kind, mat)
+    kind = scene.mat_kind[mat]
     ns = g.face_forward(n, wo)
     cos_i = g.dot(wi, ns)
     p = jnp.maximum(cos_i, 0.0) * INV_PI
@@ -102,8 +102,8 @@ def sample_bsdf(scene, mat, n, wo, u0, u1, u2, transport_radiance=True,
     the AD gradient actually differentiates.
     """
     dsc = scene if decision_scene is None else decision_scene
-    kind = fetch_int(scene.mat_kind, mat)
-    albedo = fetch(scene.mat_albedo, mat)            # (N,3)
+    kind = scene.mat_kind[mat]
+    albedo = scene.mat_albedo[mat]                   # (N,3)
     ns = g.face_forward(n, wo)                       # shading-side normal
 
     # --- diffuse: cosine-hemisphere ---
@@ -117,7 +117,7 @@ def sample_bsdf(scene, mat, n, wo, u0, u1, u2, transport_radiance=True,
 
     # --- glass: Fresnel-weighted reflect-or-refract ---
     entering = g.dot(wo, n) > 0.0
-    ior = fetch(scene.mat_ior, mat)
+    ior = scene.mat_ior[mat]
     eta_i = jnp.where(entering, 1.0, ior)
     eta_t = jnp.where(entering, ior, 1.0)
     cos_i = jnp.abs(g.dot(wo, ns))
@@ -129,7 +129,7 @@ def sample_bsdf(scene, mat, n, wo, u0, u1, u2, transport_radiance=True,
         # the AD estimator detaches BOTH the lobe pick and the sampled
         # direction; the FD twin must therefore take pick, pick
         # probability, and refraction geometry from the frozen scene
-        ior_d = fetch(dsc.mat_ior, mat)
+        ior_d = dsc.mat_ior[mat]
         ei_d = jnp.where(entering, 1.0, ior_d)
         et_d = jnp.where(entering, ior_d, 1.0)
         fr_dec, cos_t_dec, tir_dec = _fresnel_dielectric(cos_i, ei_d, et_d)

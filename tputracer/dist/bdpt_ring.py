@@ -4,7 +4,7 @@
 DP BDPT (dist.mesh.render_bdpt_sharded) pairs each eye subpath with its
 own light subpath — no cross-shard traffic, but every eye path sees ONE
 light subpath.  The ring renderer shards light subpaths with the rays
-and **rotates the light-vertex blocks around the ICI ring** with
+and **rotates the light-vertex blocks around a device ring** with
 ``lax.ppermute`` (the ring-attention communication pattern): after P
 steps every eye subpath has connected against P independent light
 subpaths, at constant per-device memory and with each exchange

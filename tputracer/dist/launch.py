@@ -5,13 +5,13 @@ The reference is a single CPU process; the framework's multi-host story
 is JAX's multi-controller SPMD: every host process runs the same
 program, ``jax.distributed.initialize`` wires them into one cluster via
 the coordination service, and the jit/shard_map code in dist.mesh runs
-unchanged over the global device mesh — ICI within a slice, DCN across
-slices, both behind the same collective API.
+unchanged over the global device mesh — NVLink within a host, the
+network across hosts, both behind the same collective API.
 
 CPU processes (tests/distributed/test_multiprocess.py) exercise the
 exact same code path with ``--xla_force_host_platform_device_count``
 standing in for local chips, so the multi-host wiring is CI-testable
-without a pod.
+without a cluster.
 """
 
 from __future__ import annotations
@@ -24,9 +24,8 @@ def initialize(coordinator_address=None, num_processes=None,
                process_id=None, **kw):
     """Join (or form) a multi-host cluster.
 
-    On TPU pods all three arguments are auto-detected from the
-    environment; on CPU/GPU clusters pass them explicitly, e.g.
-    coordinator_address="10.0.0.1:1234".  Must run before any backend
+    Pass all three explicitly (nothing detects a GPU cluster), e.g.
+    coordinator_address="localhost:1234" for processes of one host.  Must run before any backend
     use.  Idempotent-ish: raises if already initialized.
     """
     jax.distributed.initialize(

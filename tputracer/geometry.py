@@ -1,9 +1,9 @@
 """Vector math on SoA ``(N, 3)`` arrays (SURVEY.md §2 row 1).
 
 The reference's math core is a ``Vector3`` class with scalar methods
-(SURVEY.md §1a "Math core").  The TPU-native equivalent is free functions
-over batched ``(N, 3)`` float32 arrays — everything vectorizes onto the VPU
-and fuses into surrounding ops; there are no scalar structs anywhere.
+(SURVEY.md §1a "Math core").  Here it is free functions over batched
+``(N, 3)`` float32 arrays — everything vectorizes and fuses into
+surrounding ops; there are no scalar structs anywhere.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ def onb(n):
 
     n: (N,3) unit vectors -> (t, b): two (N,3) arrays with (t, b, n) RH frame.
     Branchless (copysign trick) so it vectorizes with no lane divergence —
-    the TPU replacement for the reference's if/else ONB construction.
+    the batched replacement for the reference's if/else ONB construction.
     """
     nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
     s = jnp.where(nz >= 0.0, 1.0, -1.0)

@@ -5,7 +5,7 @@ caustics scene").
 The reference's BDPT is a per-pixel double loop: random-walk an eye subpath
 and a light subpath, then connect every (s, t) vertex pair with a shadow
 ray and a multiple-importance-sampling weight (SURVEY.md §3.3).  The
-TPU-native inversion:
+wavefront form:
 
   * both subpath walks are **wavefront passes** over the whole path batch —
     the same bounce-major SoA advance as integrators.pt, run twice (once
@@ -18,12 +18,12 @@ TPU-native inversion:
     are small compile-time constants): each strategy is one fully masked
     batch — a batched BSDF eval at both endpoints, one batched shadow-ray
     any-hit, and a vectorized MIS ratio chain.  No divergence, no dynamic
-    shapes; XLA fuses each strategy into a few VPU passes plus the MXU
-    occlusion contraction;
+    shapes; XLA fuses each strategy into a few elementwise passes plus
+    the occlusion test;
   * **t=1 light tracing** (the caustics strategy) splats light-subpath
     vertices through the pinhole onto the film with a ``segment_sum``
-    scatter — the TPU-safe form of the reference's "racy in spirit" film
-    splat (SURVEY.md §7 hard part 2).
+    scatter — the deterministic form of the reference's "racy in spirit"
+    film splat (SURVEY.md §7 hard part 2).
 
 MIS bookkeeping follows the standard area-measure formulation (Veach '97
 ch. 10): every vertex stores pdf_fwd / pdf_rev — the probability per unit
@@ -51,7 +51,6 @@ from tputracer.accel import intersect, occluded
 from tputracer.bsdf import emitted, eval_bsdf, pdf_bsdf, sample_bsdf
 from tputracer.integrators.pt import camera_rays, film_from_radiance
 from tputracer.lights import pdf_light_area, sample_light
-from tputracer.lookup import fetch_int
 from tputracer.scene.types import DIFFUSE
 
 _BIG = 3.0e38                       # python floats — see accel/bruteforce.py
@@ -91,7 +90,7 @@ def _camera_pdf_sa(cam, d):
     A = |du x dv| (image plane at unit distance along the forward axis).
     """
     w_fwd = _camera_forward(cam)
-    cos = jnp.maximum(jnp.einsum("nk,k->n", d, w_fwd), 1e-6)
+    cos = jnp.maximum(jnp.sum(d * w_fwd[None, :], axis=-1), 1e-6)
     return 1.0 / (_camera_area(cam) * cos**3)
 
 
@@ -128,7 +127,7 @@ def _walk(scene, o, d, beta, pdf_sa, uid, cfg, n_verts, slot, origin,
                     tmax=jnp.where(alive, _BIG, 0.0))
         valid = alive & hit.valid
         pdf_fwd = _convert_density(pdf_sa, prev_p, hit.p, hit.n)
-        kind = fetch_int(scene.mat_kind, hit.mat)
+        kind = scene.mat_kind[hit.mat]
         v = dict(
             p=hit.p,
             ng=hit.n,
@@ -398,7 +397,7 @@ def t1_splats(scene, cfg, ys, zs, occl=None, stats_acc=None):
         dist2 = jnp.maximum(g.dot(d_raw, d_raw), 1e-12)
         dist = jnp.sqrt(dist2)
         d_cy = d_raw / dist[:, None]                 # camera -> y
-        cos_c = jnp.einsum("nk,k->n", d_cy, w_fwd)
+        cos_c = jnp.sum(d_cy * w_fwd[None, :], axis=-1)
         in_front = cos_c > 1e-6
         # project onto the unit-distance image plane -> film uv
         q = d_cy / jnp.maximum(cos_c, 1e-6)[:, None]

@@ -1,7 +1,7 @@
 """Emissive-area-light sampling for NEE and BDPT (SURVEY.md §2 row 10).
 
 The reference samples a point on an emissive surface for direct lighting
-(``AreaLight::sampleDirect``, SURVEY.md §3.2).  TPU-native form: the
+(``AreaLight::sampleDirect``, SURVEY.md §3.2).  Batched form: the
 emitter set is an SoA table of triangle ids + areas; each lane picks an
 emitter uniformly and a uniform point on it via the sqrt parameterization
 — all gathers over tiny tables, fully vectorized.  ``Le`` is read from
@@ -14,7 +14,6 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from tputracer import geometry as g
-from tputracer.lookup import fetch, fetch_int
 
 
 def sample_light(scene, u0, u1, u2):
@@ -29,20 +28,20 @@ def sample_light(scene, u0, u1, u2):
       prim     (N,)  int32 triangle id of the sampled emitter
       mat      (N,)  int32 material id of the emitter
 
-    All lookups run against the COMPACT (E,)-row emitter tables through
-    tputracer.lookup — no gathers from the big triangle SoA.
+    All lookups run against the COMPACT (E,)-row emitter tables — no
+    gathers from the big triangle SoA.
     """
     E = scene.n_emitters
     idx = jnp.minimum((u0 * E).astype(jnp.int32), E - 1)   # (N,)
-    prim = fetch_int(scene.emit_prim, idx)                 # (N,) triangle id
-    mat = fetch_int(scene.emit_mat, idx)
-    area = fetch(scene.emit_area, idx)
+    prim = scene.emit_prim[idx]                 # (N,) triangle id
+    mat = scene.emit_mat[idx]
+    area = scene.emit_area[idx]
     b1, b2 = g.uniform_sample_triangle(u1, u2)
-    y = (fetch(scene.emit_v0, idx)
-         + b1[:, None] * fetch(scene.emit_e1, idx)
-         + b2[:, None] * fetch(scene.emit_e2, idx))
-    n_l = fetch(scene.emit_n, idx)
-    le = fetch(scene.mat_emission, mat)
+    y = (scene.emit_v0[idx]
+         + b1[:, None] * scene.emit_e1[idx]
+         + b2[:, None] * scene.emit_e2[idx])
+    n_l = scene.emit_n[idx]
+    le = scene.mat_emission[mat]
     pdf_area = 1.0 / (area * E)
     return y, n_l, le, pdf_area, prim, mat
 

@@ -2,7 +2,7 @@
 
 The reference uses a stateful per-thread C RNG (SURVEY.md §1a "Sampling/RNG"
 layer).  Stateful RNG is hostile to both jit (hidden state) and sharding
-(placement-dependent streams), so the TPU-native design replaces it with a
+(placement-dependent streams), so this design replaces it with a
 pure counter-based hash: every sample is a deterministic function of
 
     (path_uid, salt, seed)
@@ -11,8 +11,8 @@ where ``path_uid`` identifies the path (pixel*spp + sample index — global,
 so the stream is identical no matter how the wavefront is sharded across
 chips), ``salt`` encodes (bounce, dimension-group), and ``seed`` is the
 frame seed.  This is the standard GPU-tracer construction (pcg3d/pcg4d of
-Jarzynski & Olano, JCGT 2020) and is pure VPU integer math — no threefry
-tables, no state, bitwise reproducible on CPU/TPU/NumPy.
+Jarzynski & Olano, JCGT 2020) and is pure elementwise integer math — no
+threefry tables, no state, bitwise reproducible on CPU/GPU/NumPy.
 
 The NumPy twin (`uniform3_np`) is used by the golden-test oracle so oracle
 and wavefront renderer consume *identical* random numbers (tests/oracle).

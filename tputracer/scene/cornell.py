@@ -57,7 +57,7 @@ def _box(lo, hi):
     return tris
 
 
-def cornell_box(variant="boxes", aspect=1.0, light_scale=1.0, pad_to=128,
+def cornell_box(variant="boxes", aspect=1.0, light_scale=1.0,
                 accel="auto", leaf_size=128):
     """Classic Cornell box in [0,1]^3 (x right, y up, z into the box).
 
@@ -127,7 +127,6 @@ def cornell_box(variant="boxes", aspect=1.0, light_scale=1.0, pad_to=128,
         materials,
         spheres=spheres,
         camera=cam,
-        pad_to=pad_to,
         accel=accel,
         leaf_size=leaf_size,
     )

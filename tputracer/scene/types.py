@@ -1,10 +1,10 @@
 """Scene as a pytree of SoA device arrays (SURVEY.md §2 row 11).
 
 The reference owns geometry/materials/lights/camera behind virtual
-``intersect()`` interfaces (SURVEY.md §1a "Scene" layer).  Virtual dispatch
-and AoS objects don't exist on TPU; the whole scene becomes one pytree of
-flat float32/int32 arrays that jit captures as device-resident constants
-(uploaded once — the host->device boundary of SURVEY.md §3.1).
+``intersect()`` interfaces (SURVEY.md §1a "Scene" layer).  Here the whole
+scene is one pytree of flat float32/int32 arrays that jit captures as
+device-resident constants (uploaded once — the host->device boundary of
+SURVEY.md §3.1): no virtual dispatch, no AoS objects.
 
 Materials and emission live in SoA tables indexed by per-primitive ids, so
 they are ordinary differentiable pytree leaves — this is what makes the
@@ -12,17 +12,23 @@ framework differentiable in albedo / emission / IOR with zero extra
 machinery (BASELINE north_star: "recover albedo + emitter intensity").
 
 Triangles additionally carry precomputed Pluecker edge coordinates
-(`plu`, shape (3, 6, T)): ray-triangle intersection against the whole
-scene is then a single ``(N,6) @ (6,3T)`` contraction that XLA maps onto
-the MXU — the TPU-native replacement for the reference's per-ray
-Moeller-Trumbore loop.
+(`plu`, shape (3, 6, T)): the inside test of a ray against a triangle is
+then three 6-term dot products with the ray feature [d, o x d], shared
+by the XLA reference (accel.bruteforce) and the GPU kernels.
+
+The dataclasses are registered with ``jax.tree_util.register_dataclass``:
+array fields are pytree leaves, the ``meta_fields`` are hashable static
+data (part of the jit cache key).
 """
 
 from __future__ import annotations
 
-import numpy as np
+import dataclasses
+from functools import partial
+
+import jax
 import jax.numpy as jnp
-from flax import struct
+import numpy as np
 
 # material kinds (BASELINE north_star: diffuse, specular, refractive)
 DIFFUSE = 0
@@ -30,7 +36,19 @@ MIRROR = 1
 GLASS = 2
 
 
-@struct.dataclass
+def _pytree_dataclass(cls=None, *, meta=()):
+    """Frozen dataclass registered as a pytree; ``meta`` names the static
+    fields.  Adds ``.replace(**kw)`` (``dataclasses.replace``)."""
+    if cls is None:
+        return partial(_pytree_dataclass, meta=meta)
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = lambda self, **kw: dataclasses.replace(self, **kw)
+    data = [f.name for f in dataclasses.fields(cls) if f.name not in meta]
+    return jax.tree_util.register_dataclass(
+        cls, data_fields=data, meta_fields=list(meta))
+
+
+@_pytree_dataclass
 class Camera:
     """Pinhole camera (SURVEY.md §2 row 12): image-plane parameterization.
 
@@ -43,7 +61,7 @@ class Camera:
     dv: jnp.ndarray       # (3,) full vertical image-plane span
 
 
-@struct.dataclass
+@_pytree_dataclass(meta=("n_tris", "eps", "leaf_size"))
 class Scene:
     # triangles (padded to `n_tri_pad`; valid count = n_tris static field)
     tri_v0: jnp.ndarray   # (T,3)
@@ -67,8 +85,7 @@ class Scene:
 
     # emitters: emissive triangle ids + areas (uniform-area light sampling),
     # plus a COMPACT copy of their geometry/material so light sampling
-    # never gathers from the big triangle tables (tputracer.lookup: TPU
-    # gathers are ~230x slower than small one-hot contractions)
+    # reads a few rows instead of the big triangle tables
     emit_prim: jnp.ndarray  # (E,) int32 triangle ids
     emit_area: jnp.ndarray  # (E,) f32 triangle areas
     emit_v0: jnp.ndarray    # (E,3)
@@ -86,9 +103,9 @@ class Scene:
     camera: Camera
 
     # statics (hashable; shape-affecting)
-    n_tris: int = struct.field(pytree_node=False, default=0)
-    eps: float = struct.field(pytree_node=False, default=1e-4)
-    leaf_size: int = struct.field(pytree_node=False, default=128)
+    n_tris: int = 0
+    eps: float = 1e-4
+    leaf_size: int = 128
 
     @property
     def n_tri_pad(self):
@@ -153,19 +170,22 @@ def make_scene(
     materials,         # list of dicts: kind, albedo, emission, ior
     spheres=(),        # list of (center(3), radius, mat_id)
     camera=None,
-    pad_to=128,   # 128-aligned: enables the fused Pallas intersector on TPU
     eps=1e-4,
     accel="auto",      # "auto" | "cluster" | "none"
-    leaf_size=128,     # 128 = lane-aligned for the Pallas traversal kernel
+    leaf_size=128,     # triangles per cluster: each traversal trip scans
+                       # all C ~ T/leaf boxes, then tests leaf triangles;
+                       # 128 keeps both terms of the same order on the
+                       # 102k mesh (other sizes not yet measured on the card)
     cluster_threshold=2048,  # "auto": cluster scenes above this tri count
 ):
     """Host-side scene finalization: SoA arrays + Pluecker precompute + padding.
 
-    This is the TPU analogue of the reference's ``Scene::load`` (SURVEY.md
-    §3.1): everything becomes flat device arrays, uploaded once.  Large
-    meshes additionally get the 2-level cluster BVH (accel.bvh): the
-    triangle SoA is emitted in cluster-major order with per-cluster AABBs,
-    which is what the TPU traversal kernels consume.
+    The analogue of the reference's ``Scene::load`` (SURVEY.md §3.1):
+    everything becomes flat device arrays, uploaded once.  Large meshes
+    additionally get the 2-level cluster BVH (accel.bvh): the triangle
+    SoA is emitted in cluster-major order with per-cluster AABBs, which
+    is what the traversal consumes.  Unclustered scenes are not padded
+    (one degenerate masked row only when there are no triangles).
     """
     tv = np.asarray(tri_vertices, np.float32)
     assert tv.ndim == 3 and tv.shape[1:] == (3, 3), tv.shape
@@ -186,7 +206,7 @@ def make_scene(
         mat = (np.asarray(tri_mat, np.int32)[perm]
                * (mask > 0)).astype(np.int32)
     else:
-        Tp = max(pad_to, int(np.ceil(T / pad_to)) * pad_to)
+        Tp = max(T, 1)
         v0 = np.zeros((Tp, 3), np.float32)
         v1 = np.zeros((Tp, 3), np.float32)
         v2 = np.zeros((Tp, 3), np.float32)
